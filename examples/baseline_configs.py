@@ -1,6 +1,6 @@
 """Runnable demos of the five BASELINE benchmark configurations.
 
-Each function builds its atmosphere programmatically (artes_tpu.presets) and
+Each function builds its atmosphere programmatically (artes.presets) and
 runs a reduced-photon version of the corresponding BASELINE.json config:
 
   1. Rayleigh 1-layer reflected-light Stokes I/Q spectrum
@@ -16,9 +16,9 @@ import sys
 
 import numpy as np
 
-from artes_tpu import presets, runner
-from artes_tpu.config import ArtesConfig, detector_setup
-from artes_tpu.constants import PI, planck_lambda
+from artes import presets, runner
+from artes.config import ArtesConfig, detector_setup
+from artes.constants import PI, planck_lambda
 
 
 def norm(cfg, atm, wl=0):

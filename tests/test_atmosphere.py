@@ -1,10 +1,10 @@
 import numpy as np
 import pytest
 
-from artes_tpu.atmosphere import Atmosphere, build_atmosphere, build_and_write, load_artifact, write_artifact
-from artes_tpu.constants import PI, R_JUP
-from artes_tpu.opacity import rayleigh
-from artes_tpu.opacity.base import write_opacity_fits
+from artes.atmosphere import Atmosphere, build_atmosphere, build_and_write, load_artifact, write_artifact
+from artes.constants import PI, R_JUP
+from artes.opacity import rayleigh
+from artes.opacity.base import write_opacity_fits
 
 
 def make_rayleigh_input(tmp_path, radial="100", theta="", phi="", density="1e-3",
@@ -107,7 +107,7 @@ def test_p_int_rayleigh(tmp_path):
 
 
 def test_hydrostatic_grid(tmp_path):
-    from artes_tpu.opacity import ptprofile
+    from artes.opacity import ptprofile
 
     d = tmp_path / "selflum"
     (d / "opacity").mkdir(parents=True)

@@ -13,9 +13,9 @@ import dataclasses
 import numpy as np
 import pytest
 
-from artes_tpu import presets, runner
-from artes_tpu.config import ArtesConfig, detector_setup
-from artes_tpu.constants import PI, planck_lambda
+from artes import presets, runner
+from artes.config import ArtesConfig, detector_setup
+from artes.constants import PI, planck_lambda
 
 
 def _norm(cfg, atm, wl=0):

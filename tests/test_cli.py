@@ -11,9 +11,9 @@ import os
 import numpy as np
 import pytest
 
-from artes_tpu import cli
-from artes_tpu.opacity import rayleigh
-from artes_tpu.opacity.base import write_opacity_fits
+from artes import cli
+from artes.opacity import rayleigh
+from artes.opacity.base import write_opacity_fits
 
 ARTES_IN = """\
 * demo run
@@ -124,7 +124,7 @@ def test_keyword_override_and_imaging(demo_root):
     assert "detector:type=imaging_mono" in eff
     assert "detector:pixel=5" in eff
 
-    from artes_tpu.io.fitsio import read_fits
+    from artes.io.fitsio import read_fits
     data = read_fits(run / "output" / "stokes.fits")[0][1]
     assert data.shape[-2:] == (5, 5)
     assert np.isfinite(data).all()

@@ -2,8 +2,8 @@ import math
 
 import pytest
 
-from artes_tpu.config import ArtesConfig, ConfigError, detector_setup, load_config, parse_lines
-from artes_tpu.constants import AU, PARSEC, PI, R_SUN
+from artes.config import ArtesConfig, ConfigError, detector_setup, load_config, parse_lines
+from artes.constants import AU, PARSEC, PI, R_SUN
 
 
 ARTES_IN = """\
@@ -116,7 +116,7 @@ def test_oblateness_fov():
 def test_max_scatter_key():
     """photon:max_scatter (extension key; the reference runs photons to
     roulette death, ARTES.f90:786-951 — VERDICT r3 weak #5)."""
-    from artes_tpu.config import ConfigError, apply_key, parse_lines, snapshot
+    from artes.config import ConfigError, apply_key, parse_lines, snapshot
 
     cfg = parse_lines(["photon:max_scatter=8"])
     assert cfg.max_scatter == 8
@@ -136,8 +136,8 @@ def test_max_scatter_reaches_kernel():
     tallied as n_alive_at_cap."""
     import jax.numpy as jnp
     import numpy as np
-    from artes_tpu import presets
-    from artes_tpu.runner import _kernel_static, run_wavelength
+    from artes import presets
+    from artes.runner import _kernel_static, run_wavelength
 
     atm = presets.rayleigh_single_layer(tau=8.0)
     cfg = ArtesConfig()

@@ -4,10 +4,10 @@ broadband imaging and the phase-curve mode."""
 import numpy as np
 import pytest
 
-from artes_tpu import output as out
-from artes_tpu import presets, runner
-from artes_tpu.config import ArtesConfig, detector_setup
-from artes_tpu.constants import PI, planck_lambda
+from artes import output as out
+from artes import presets, runner
+from artes.config import ArtesConfig, detector_setup
+from artes.constants import PI, planck_lambda
 
 
 def _norm(cfg, atm, wl=0):
@@ -111,9 +111,9 @@ def test_thermal_biased_emission_unbiased_estimator():
 def test_ring_system_build_and_run(tmp_path):
     """Builder ring layer (atmosphere.py:404-445): two extra radial cells;
     the run completes and the ring scatters light outside the planet disk."""
-    from artes_tpu.atmosphere import build_atmosphere
-    from artes_tpu.opacity import rayleigh
-    from artes_tpu.opacity.base import write_opacity_fits
+    from artes.atmosphere import build_atmosphere
+    from artes.opacity import rayleigh
+    from artes.opacity.base import write_opacity_fits
 
     d = tmp_path / "ringed"
     (d / "opacity").mkdir(parents=True)

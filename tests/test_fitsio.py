@@ -1,6 +1,6 @@
 import numpy as np
 
-from artes_tpu.io.fitsio import read_fits, read_fits_map, write_fits
+from artes.io.fitsio import read_fits, read_fits_map, write_fits
 
 
 def test_roundtrip_multi_hdu(tmp_path):
@@ -53,7 +53,7 @@ def test_reference_artifact_layout(tmp_path):
 
 def test_native_reader_matches_python(tmp_path):
     """The C++ loader (cfitsio equivalent) returns identical data."""
-    from artes_tpu.io.fitsio import read_fits_native
+    from artes.io.fitsio import read_fits_native
 
     path = tmp_path / "n.fits"
     rng = np.random.default_rng(5)

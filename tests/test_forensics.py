@@ -10,12 +10,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from artes_tpu import presets
-from artes_tpu.config import ArtesConfig, detector_setup
-from artes_tpu.runner import _kernel_static
-from artes_tpu.transport.kernel import (ERR_RECORD_K, order_error_records,
+from artes import presets
+from artes.config import ArtesConfig, detector_setup
+from artes.runner import _kernel_static
+from artes.transport.kernel import (ERR_RECORD_K, order_error_records,
                                         run_stream)
-from artes_tpu.transport.tables import build_tables
+from artes.transport.tables import build_tables
 
 
 def test_order_error_records_ring():
@@ -110,10 +110,10 @@ def test_degenerate_geometry_ring_capture():
 def test_error_log_state_dump(tmp_path, monkeypatch):
     """End-to-end: a degenerate run writes per-event state dumps to
     error.log (pos/dir/cell/face, mirroring ARTES.f90:3397-3416)."""
-    import artes_tpu.runner as runner_mod
-    from artes_tpu import cli
-    from artes_tpu.opacity import rayleigh
-    from artes_tpu.opacity.base import write_opacity_fits
+    import artes.runner as runner_mod
+    from artes import cli
+    from artes.opacity import rayleigh
+    from artes.opacity.base import write_opacity_fits
 
     d = tmp_path / "input" / "demo"
     (d / "opacity").mkdir(parents=True)
@@ -142,41 +142,3 @@ def test_error_log_state_dump(tmp_path, monkeypatch):
     text = log.read_text()
     assert "031" in text
     assert "pos=(" in text and "cell=(" in text       # state dump present
-
-
-def test_pallas_inkernel_forensics_matches_xla_replay():
-    """First-class Pallas forensics (VERDICT r4 item 7): each lane keeps its
-    first error's state snapshot IN-KERNEL; the host decodes them into the
-    XLA ring format. Validated by replaying a recorded photon id as a
-    1-photon XLA run (the id — not the lane — keys the RNG, so the replay
-    reproduces the exact trajectory) and comparing the dump field by field."""
-    from artes_tpu.transport import pallas_stream as P
-
-    atm = presets.rayleigh_single_layer(tau=6.0, nr=8,
-                                        theta_deg=(0.0, 90.0, 180.0))
-    cfg = ArtesConfig()
-    cfg.mode = "spectrum"
-    det = detector_setup(cfg, float(atm.rfront[-1]))
-    prep = build_tables(atm, cfg, det, 0, dtype=jnp.float32)
-    static = _static_with(cfg, det, atm, max_crossings=2)
-    assert P.supports(prep.tables, static)
-
-    out = P.run_stream_pallas(prep.tables, static, 600, 5, 256,
-                              interpret=True)
-    assert int(out["n_error"]) > 0
-    k = int(out["n_error_records"])
-    assert k > 0
-    rows = order_error_records(out["error_records"], k)
-    assert set(np.unique(rows[:, 0])) <= {31.0, 32.0, 34.0, 50.0}
-    assert (rows[:, 1] < 600).all()          # pids in range
-
-    # replay the first recorded photon through the XLA kernel: its dump
-    # must match the in-kernel snapshot (common compiler => bit-equal)
-    row = rows[0]
-    pid = int(row[1])
-    ref = run_stream(prep.tables, static, 1, 5, 128, 0, pid)
-    assert int(ref["n_error_records"]) >= 1
-    ref_row = np.asarray(order_error_records(ref["error_records"],
-                                             int(ref["n_error_records"])))[0]
-    # code, pid, pos, dir, cell, face, n_scat, site (Stokes I at col 13)
-    np.testing.assert_allclose(row, ref_row, rtol=0.0, atol=0.0)

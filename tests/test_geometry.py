@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from artes_tpu.transport import geometry as G
+from artes.transport import geometry as G
 
 
 class FakeAtm:

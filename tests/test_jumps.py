@@ -11,11 +11,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from artes_tpu import presets
-from artes_tpu.config import ArtesConfig, detector_setup
-from artes_tpu.runner import _kernel_static
-from artes_tpu.transport import jumps as J
-from artes_tpu.transport.tables import build_tables
+from artes import presets
+from artes.config import ArtesConfig, detector_setup
+from artes.runner import _kernel_static
+from artes.transport import jumps as J
+from artes.transport.tables import build_tables
 
 
 def _env_from_tables(t):

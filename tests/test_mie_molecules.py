@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from artes_tpu.opacity import mie, molecules
-from artes_tpu.opacity.base import p11_norm
+from artes.opacity import mie, molecules
+from artes.opacity.base import p11_norm
 
 
 @pytest.fixture(scope="module")
@@ -86,7 +86,7 @@ def test_generate_layers(tmp_path):
     temperature = np.array([110.0, 150.0, 190.0])
     paths = molecules.generate_layers(d, pressure, temperature, 0.5, 2.0, out)
     assert len(paths) == 3
-    from artes_tpu.opacity.base import read_opacity_fits
+    from artes.opacity.base import read_opacity_fits
     # deepest layer (highest P, last row) is gas_opacity_01
     tab1 = read_opacity_fits(out / "gas_opacity_01.fits")
     tab3 = read_opacity_fits(out / "gas_opacity_03.fits")

@@ -2,8 +2,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from artes_tpu.opacity import rayleigh
-from artes_tpu.transport import mueller as M
+from artes.opacity import rayleigh
+from artes.transport import mueller as M
 
 
 def test_mueller_rotate_invariants():

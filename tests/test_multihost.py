@@ -26,15 +26,15 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 coordinator, nproc, rank, out_path = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
-from artes_tpu.parallel import multihost
+from artes.parallel import multihost
 ok = multihost.initialize(coordinator_address=coordinator,
                           num_processes=nproc, process_id=rank)
 assert ok and jax.process_count() == nproc and jax.process_index() == rank
 
 import jax.numpy as jnp
-from artes_tpu import presets
-from artes_tpu.config import ArtesConfig, detector_setup
-from artes_tpu import runner
+from artes import presets
+from artes.config import ArtesConfig, detector_setup
+from artes import runner
 
 atm = presets.rayleigh_single_layer(tau=2.0, wavelengths=(0.5, 0.6, 0.7, 0.8))
 cfg = ArtesConfig(); cfg.mode = "spectrum"
@@ -87,8 +87,8 @@ def test_two_process_wavelength_sharding(tmp_path):
     assert sorted(merged) == [0, 1, 2, 3]
 
     # ground truth: unsharded single-process run
-    from artes_tpu import presets, runner
-    from artes_tpu.config import ArtesConfig
+    from artes import presets, runner
+    from artes.config import ArtesConfig
     import jax.numpy as jnp
 
     atm = presets.rayleigh_single_layer(tau=2.0, wavelengths=(0.5, 0.6, 0.7, 0.8))

@@ -1,9 +1,9 @@
 import numpy as np
 import pytest
 
-from artes_tpu.constants import PI
-from artes_tpu.opacity import base, henyey_greenstein, isotropic, rayleigh
-from artes_tpu.opacity.base import (
+from artes.constants import PI
+from artes.opacity import base, henyey_greenstein, isotropic, rayleigh
+from artes.opacity.base import (
     N_ANGLE,
     expand_6_to_16,
     normalize_scatter,

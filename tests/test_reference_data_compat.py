@@ -17,7 +17,7 @@ pytestmark = pytest.mark.skipif(not os.path.isdir(REF),
 
 
 def test_gas_absorption_table_methane():
-    from artes_tpu.opacity import gas
+    from artes.opacity import gas
 
     tab = gas.generate(os.path.join(REF, "absorption", "methane.dat"),
                        wl_min=0.4, wl_max=1.0, step=0.001,
@@ -31,19 +31,19 @@ def test_gas_absorption_table_methane():
 
 
 def test_mie_with_reference_refractive_index():
-    from artes_tpu.opacity import mie
+    from artes.opacity import mie
 
     tab = mie.generate(os.path.join(REF, "refractive_index", "ammonia_ice.dat"),
                        [1.0], nr=10, nf=1, amin=0.5, amax=2.0, apow=3.5,
                        fmax=0.0)
     assert tab.extinction[0] > 0
     assert 0.0 < tab.scattering[0] <= tab.extinction[0]
-    from artes_tpu.opacity.base import p11_norm
+    from artes.opacity.base import p11_norm
     np.testing.assert_allclose(p11_norm(tab.scatter), 1.0, rtol=1e-9)
 
 
 def test_molecules_ptgrid_parses():
-    from artes_tpu.opacity.molecules import PTGrid
+    from artes.opacity.molecules import PTGrid
 
     mol = os.path.join(REF, "molecules")
     if not os.path.isfile(os.path.join(mol, "PTgrid.dat")):

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from artes_tpu.transport import rng as R
+from artes.transport import rng as R
 
 u32 = jnp.uint32
 
@@ -43,10 +43,8 @@ _F32_SCHEDULE = np.asarray([
      0.675371647, 0.068853259, 0.631112576, 0.859509230, 0.902967691],
 ], np.float32)
 
-# float64 stream (a distinct site->value mapping): seed 0, pid 0, sites 0..4
-_F64_SCHEDULE = [0.41845711171638666, 0.31468171923267452,
-                 0.3931602791381788, 0.72137098410641409,
-                 0.67354981500073197]
+# float64 draws widen the float32 values: seed 0, pid 0, sites 0..4
+_F64_SCHEDULE = [float(v) for v in _F32_SCHEDULE[0, :5]]
 
 
 def test_site_schedule_golden_f32():
@@ -112,11 +110,11 @@ def test_id_hi_mixing_definition_and_distinctness():
 def test_stream_chunking_invariance():
     """Two chunkings of the same photon-id range give the same physics
     (VERDICT r2 item 6: one well-defined stream per (seed, 64-bit id))."""
-    from artes_tpu import presets
-    from artes_tpu.config import ArtesConfig, detector_setup
-    from artes_tpu.runner import _kernel_static
-    from artes_tpu.transport.kernel import run_stream
-    from artes_tpu.transport.tables import build_tables
+    from artes import presets
+    from artes.config import ArtesConfig, detector_setup
+    from artes.runner import _kernel_static
+    from artes.transport.kernel import run_stream
+    from artes.transport.tables import build_tables
 
     atm = presets.rayleigh_single_layer(tau=2.0)
     cfg = ArtesConfig()

@@ -4,9 +4,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from artes_tpu.atmosphere import SINBETA
-from artes_tpu.opacity import henyey_greenstein, rayleigh
-from artes_tpu.transport import sampling as S
+from artes.atmosphere import SINBETA
+from artes.opacity import henyey_greenstein, rayleigh
+from artes.transport import sampling as S
 
 
 def _tables(tab):
@@ -42,7 +42,7 @@ def test_alpha_distribution_unpolarized(generator, kwargs):
     beta, c2b, s2b = S.sample_beta(
         jnp.asarray(np.tile(p_int, (n, 1))), stokes,
         jnp.asarray(rng.uniform(size=n)), jnp.asarray(rng.uniform(size=n)))
-    alpha, alpha_deg = S.sample_alpha_fused(
+    alpha, alpha_deg = S.sample_alpha(
         jnp.asarray(prefix), jnp.zeros(n, jnp.int32), stokes,
         (c2b, s2b), jnp.asarray(rng.uniform(size=n)))
     np.testing.assert_allclose(np.asarray(alpha),
@@ -128,7 +128,7 @@ def test_alpha_hierarchical_matches_full_scan():
     u3 = rng.uniform(size=n)
     c2b = np.cos(2 * rng.uniform(0, np.pi, size=n))
     s2b = np.sqrt(1 - c2b**2) * np.sign(rng.uniform(-1, 1, size=n))
-    alpha, alpha_deg = S.sample_alpha_fused(
+    alpha, alpha_deg = S.sample_alpha(
         jnp.asarray(prefix), jnp.zeros(n, jnp.int32), jnp.asarray(stokes_np),
         (jnp.asarray(c2b), jnp.asarray(s2b)), jnp.asarray(u3))
     # flat reference scan in float64
@@ -167,7 +167,7 @@ def test_matrix_at_angle_interpolation():
 
 
 def test_determinism():
-    from artes_tpu.transport import rng as R
+    from artes.transport import rng as R
 
     keys = R.photon_keys(123, jnp.arange(64))
     u_a = R.uniform(keys, 7)

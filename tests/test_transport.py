@@ -9,12 +9,12 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from artes_tpu.atmosphere import build_atmosphere
-from artes_tpu.config import ArtesConfig, detector_setup
-from artes_tpu.constants import PI, planck_lambda
-from artes_tpu.opacity import isotropic, rayleigh
-from artes_tpu.opacity.base import write_opacity_fits
-from artes_tpu.runner import run_wavelength
+from artes.atmosphere import build_atmosphere
+from artes.config import ArtesConfig, detector_setup
+from artes.constants import PI, planck_lambda
+from artes.opacity import isotropic, rayleigh
+from artes.opacity.base import write_opacity_fits
+from artes.runner import run_wavelength
 
 
 def make_input(tmp_path, name, tab, radius_rjup, radial_km, density_gcc,
